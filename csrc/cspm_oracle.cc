@@ -9,12 +9,12 @@
 // aggregation, LR-check/fill/weighted-median post-processing -- so the repo
 // can (a) MEASURE the CPU wall-clock baseline that bench.py reports against
 // and (b) produce end-to-end disparity maps for accuracy comparison with the
-// TPU engine.  It is written fresh against the behavior notes in SURVEY.md
+// JAX engine.  It is written fresh against the behavior notes in SURVEY.md
 // (semantics cited per function); it is not a copy of the reference sources.
 //
 // Build: g++ -O3 -march=native -fopenmp -shared -fPIC -std=c++17
 //        -o libcspm_oracle.so cspm_oracle.cc
-// (crossscalepatchmatch_tpu/oracle.py builds it on demand and binds via
+// (crossscalepatchmatch/oracle.py builds it on demand and binds via
 // ctypes.)
 
 #include <algorithm>

@@ -1,6 +1,8 @@
 """Test harness: run everything on a virtual 8-device CPU mesh.
 
-Must set platform flags before jax is imported anywhere.
+Must set platform flags before jax is imported anywhere.  The CPU is the
+test authority (backend.cost_backend): the GPU kernel is tested here in
+the Pallas interpreter, and compiled on the card by chip_smoke.py.
 """
 
 import os
@@ -16,15 +18,13 @@ import sys
 
 sys.path.insert(0, _REPO)
 
-# Persistent compile cache: XLA-CPU compiles of the unrolled window/census
-# graphs take tens of seconds on this host; cache them across test runs.
-# (The env-var spelling is not honored in this JAX build, so set the config
-# programmatically.)
 import jax
 
-# The env-var spellings (JAX_PLATFORMS / JAX_COMPILATION_CACHE_DIR) are not
-# honored by this JAX build, so force both programmatically.
+# the tests run on the CPU even on a machine with a GPU
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", os.path.join(_REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+
+# Persistent compile cache: XLA-CPU compiles of the unrolled window/census
+# graphs take tens of seconds; cache them across test runs.
+from crossscalepatchmatch.backend import enable_compile_cache
+
+enable_compile_cache()

@@ -1,7 +1,7 @@
 """Slow, direct NumPy oracle of the reference semantics for golden tests.
 
 Written as literal nested loops mirroring the *behavior* documented in
-SURVEY.md (not the reference's code structure) so the dense TPU ops can be
+SURVEY.md (not the reference's code structure) so the dense engine ops can be
 checked element-by-element on tiny inputs.
 """
 

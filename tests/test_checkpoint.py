@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from crossscalepatchmatch_tpu import CSPMConfig
-from crossscalepatchmatch_tpu.checkpoint import (load_state,
+from crossscalepatchmatch import CSPMConfig
+from crossscalepatchmatch.checkpoint import (load_state,
                                                  run_pair_resumable,
                                                  save_state)
-from crossscalepatchmatch_tpu.data import make_pair
+from crossscalepatchmatch.data import make_pair
 
 
 def _cfg():
@@ -29,7 +29,7 @@ def test_resume_is_bit_exact(tmp_path):
     p2 = str(tmp_path / "b.npz")
     mid = None
 
-    import crossscalepatchmatch_tpu.checkpoint as ck
+    import crossscalepatchmatch.checkpoint as ck
     orig = ck.save_state
     saved = {}
 
@@ -64,7 +64,7 @@ def test_resume_rank_exact_bit_exact(tmp_path):
     p1 = str(tmp_path / "a.npz")
     full = run_pair_resumable(pair.left, pair.right, cfg, p1, seed=3)
 
-    import crossscalepatchmatch_tpu.checkpoint as ck
+    import crossscalepatchmatch.checkpoint as ck
     orig = ck.save_state
     saved = {}
 
@@ -114,9 +114,9 @@ def test_sharded_resume_bit_exact(tmp_path):
     import jax.numpy as jnp
     import pytest
 
-    from crossscalepatchmatch_tpu.checkpoint import (
+    from crossscalepatchmatch.checkpoint import (
         run_batch_sharded_resumable)
-    from crossscalepatchmatch_tpu.parallel.mesh import make_mesh
+    from crossscalepatchmatch.parallel.mesh import make_mesh
 
     if jax.device_count() < 8:
         pytest.skip("needs 8 virtual devices")
@@ -136,7 +136,7 @@ def test_sharded_resume_bit_exact(tmp_path):
                                                   p1))
 
     # simulate a crash after iteration 1: rewind the shard file, resume
-    import crossscalepatchmatch_tpu.checkpoint as ck
+    import crossscalepatchmatch.checkpoint as ck
     p2 = str(tmp_path / "b.ck")
     saved = {}
     orig = ck._shards_to_disk

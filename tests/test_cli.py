@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from crossscalepatchmatch_tpu import io as cspm_io
-from crossscalepatchmatch_tpu.cli import main
-from crossscalepatchmatch_tpu.data import make_pair
-from crossscalepatchmatch_tpu.metrics import bad_pixel_rate
+from crossscalepatchmatch import io as cspm_io
+from crossscalepatchmatch.cli import main
+from crossscalepatchmatch.data import make_pair
+from crossscalepatchmatch.metrics import bad_pixel_rate
 
 
 def test_cli_roundtrip(tmp_path):
@@ -21,8 +21,7 @@ def test_cli_roundtrip(tmp_path):
                "--use_cs", "false", "--use_pp", "true",
                "--wnd_size", "15", "--reg_lambda", "0.0"])
     assert rc == 0
-    from PIL import Image
-    dis = np.asarray(Image.open(lo))
+    dis = cspm_io.read_gray(str(lo))
     assert dis.shape == (64, 96)
     bad = bad_pixel_rate(dis.astype(np.float32) / 16.0, pair.disp_left,
                          pair.valid_left)
@@ -35,7 +34,7 @@ def test_cli_photo_textured_pair(tmp_path):
     grace_hopper.jpg crops as layer textures over exact GT geometry."""
     import pytest
 
-    from crossscalepatchmatch_tpu.data import load_host_photo, photo_textures
+    from crossscalepatchmatch.data import load_host_photo, photo_textures
 
     photo = load_host_photo()
     if photo is None:
@@ -54,8 +53,7 @@ def test_cli_photo_textured_pair(tmp_path):
                "--use_cs", "false", "--use_pp", "true",
                "--wnd_size", "15", "--reg_lambda", "0.0"])
     assert rc == 0
-    from PIL import Image
-    dis = np.asarray(Image.open(lo))
+    dis = cspm_io.read_gray(str(lo))
     bad = bad_pixel_rate(dis.astype(np.float32) / 16.0, pair.disp_left,
                          pair.valid_left)
     assert bad < 0.15, bad
@@ -82,9 +80,8 @@ def test_cli_input_list(tmp_path):
         f'--use_pp=false --wnd_size=11 --seed=1\n')
     rc = main(["--input_list", str(lst)])
     assert rc == 0
-    from PIL import Image
-    a = np.asarray(Image.open(tmp_path / "a_l.png"))
-    b = np.asarray(Image.open(tmp_path / "b_l.png"))
+    a = cspm_io.read_gray(str(tmp_path / "a_l.png"))
+    b = cspm_io.read_gray(str(tmp_path / "b_l.png"))
     assert a.shape == b.shape == (48, 64)
     # different seeds -> (almost surely) different maps, same scene
     bad_a = bad_pixel_rate(a.astype(np.float32) / 16.0, pair.disp_left,

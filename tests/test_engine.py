@@ -6,12 +6,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from crossscalepatchmatch_tpu import CSPMConfig, CostMethod
-from crossscalepatchmatch_tpu.data import make_pair
-from crossscalepatchmatch_tpu.metrics import bad_pixel_rate, epe
-from crossscalepatchmatch_tpu.models import patchmatch as pm
-from crossscalepatchmatch_tpu.models import postprocess as pp
-from crossscalepatchmatch_tpu.models.pipeline import run_pair_np
+from crossscalepatchmatch import CSPMConfig, CostMethod
+from crossscalepatchmatch.data import make_pair
+from crossscalepatchmatch.metrics import bad_pixel_rate, epe
+from crossscalepatchmatch.models import patchmatch as pm
+from crossscalepatchmatch.models import postprocess as pp
+from crossscalepatchmatch.models.pipeline import run_pair_np
 
 
 SMALL = dict(h=48, w=64, max_dis=12, seed=3)
@@ -91,7 +91,7 @@ class TestEndToEnd:
     def test_batched_pairs_match_single_runs(self):
         # run_pairs (single-chip batch serving) must equal per-pair
         # run_pair bit-for-bit, each pair under its own seed
-        from crossscalepatchmatch_tpu.models.pipeline import (run_pair,
+        from crossscalepatchmatch.models.pipeline import (run_pair,
                                                               run_pairs)
         p0 = make_pair(**SMALL)
         p1 = make_pair(**{**SMALL, "seed": 9, "n_fg": 3})
@@ -117,8 +117,8 @@ class TestEndToEnd:
         assert bad < 0.15, f"rank+exact bad-pixel rate too high: {bad:.3f}"
         # the held cost must be in exact units after the final iteration:
         # re-evaluating the returned planes exactly reproduces it
-        from crossscalepatchmatch_tpu.models import patchmatch as pm2
-        from crossscalepatchmatch_tpu.ops.cost_volume import (
+        from crossscalepatchmatch.models import patchmatch as pm2
+        from crossscalepatchmatch.ops.cost_volume import (
             build_volume_data)
         vd = build_volume_data(jnp.asarray(pair.left),
                                jnp.asarray(pair.right), cfg)
@@ -137,7 +137,7 @@ class TestEndToEnd:
         refresh-style trajectory (standalone K=1 exact evaluation of the
         held planes) plane-for-plane.  Both trajectories are composed
         here as unrolled loops so only the entry style differs."""
-        from crossscalepatchmatch_tpu.ops.cost_volume import (
+        from crossscalepatchmatch.ops.cost_volume import (
             build_volume_data)
         pair = make_pair(**SMALL)
         h, w = SMALL["h"], SMALL["w"]
@@ -265,7 +265,7 @@ class TestAdopt:
 
 class TestWarmStart:
     def test_sequence_warm_start_holds_quality(self):
-        from crossscalepatchmatch_tpu.models.pipeline import run_sequence_np
+        from crossscalepatchmatch.models.pipeline import run_sequence_np
 
         pair = make_pair(**SMALL)
         cfg = small_cfg(max_iter=2)
@@ -282,7 +282,7 @@ class TestWarmStart:
         assert bads[2] <= bads[0] + 0.005, bads
 
     def test_warm_start_cost_never_worse(self):
-        from crossscalepatchmatch_tpu.models.pipeline import (run_pair_np,
+        from crossscalepatchmatch.models.pipeline import (run_pair_np,
                                                               run_pair_warm)
 
         pair = make_pair(**SMALL)
@@ -311,7 +311,7 @@ class TestLabWeights:
         """The Lab weight image must actually reach the evaluator: cost
         fields under BGR vs Lab weights differ (same volume, same
         planes)."""
-        from crossscalepatchmatch_tpu.ops.cost_volume import (
+        from crossscalepatchmatch.ops.cost_volume import (
             build_volume_data)
         pair = make_pair(**SMALL)
         key = jax.random.PRNGKey(0)
@@ -337,19 +337,3 @@ class TestLabWeights:
         disp = out["dis"][0].astype(np.float32) / cfg.dis_scale
         bad = bad_pixel_rate(disp, pair.disp_left, pair.valid_left, 1.0)
         assert bad < 0.25, f"literal-fly lab bad-pixel too high: {bad:.3f}"
-
-    def test_lab_weights_fused_fly_builds(self):
-        """Round 5 closed the one rejected config square: the fused
-        no-volume fly kernel accepts Lab weights via a prefixed
-        weight-channel slab (numerics covered by tests/test_pallas.py
-        lab tests and tests_tpu on hardware)."""
-        cfg = small_cfg(precompute_volume=False, use_lab_weights=True,
-                        adopt_mode="exact", prescreen_stride=1)
-        imgs = jnp.zeros((32, 48, 3), jnp.uint8)
-        cost_fn, sparse_fn = pm.make_fused_fly_cost_fns(cfg, imgs, imgs)
-        assert cost_fn is not None
-        cfg_cs = small_cfg(precompute_volume=False, use_lab_weights=True,
-                           use_cs=True, scale_num=2, reg_lambda=0.3,
-                           adopt_mode="exact", prescreen_stride=1)
-        cost_cs, _ = pm.make_fused_fly_cost_fns(cfg_cs, imgs, imgs)
-        assert cost_cs is not None

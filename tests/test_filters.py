@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from crossscalepatchmatch_tpu.ops import filters
+from crossscalepatchmatch.ops import filters
 
 
 def np_box_filter(x, r):
@@ -151,9 +151,9 @@ def test_volume_aggregation_touches_inner_slices_only(rng):
 
 
 def test_aggregator_dispatch_runs():
-    from crossscalepatchmatch_tpu.config import Aggregator, CSPMConfig
-    from crossscalepatchmatch_tpu.data import make_pair
-    from crossscalepatchmatch_tpu.ops.cost_volume import build_volume_data
+    from crossscalepatchmatch.config import Aggregator, CSPMConfig
+    from crossscalepatchmatch.data import make_pair
+    from crossscalepatchmatch.ops.cost_volume import build_volume_data
 
     pair = make_pair(h=24, w=32, max_dis=6, seed=3)
     for agg in (Aggregator.BOX, Aggregator.GF, Aggregator.BF):

@@ -28,13 +28,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from crossscalepatchmatch_tpu.ops.census import census_cost_volume
-from crossscalepatchmatch_tpu.ops.grad_cost import grd_cost_volume
-from crossscalepatchmatch_tpu.ops.onthefly_cost import (grd_fly_cost,
+from crossscalepatchmatch.ops.census import census_cost_volume
+from crossscalepatchmatch.ops.grad_cost import grd_cost_volume
+from crossscalepatchmatch.ops.onthefly_cost import (grd_fly_cost,
                                                         gray_gradient)
-from crossscalepatchmatch_tpu.ops.plane import params_from_normal_point
-from crossscalepatchmatch_tpu.ops.plane_cost import window_plane_cost
-from crossscalepatchmatch_tpu.ops.scale_weights import scale_weights
+from crossscalepatchmatch.ops.plane import params_from_normal_point
+from crossscalepatchmatch.ops.plane_cost import window_plane_cost
+from crossscalepatchmatch.ops.scale_weights import scale_weights
 
 
 def _const_rgb(h, w, val):

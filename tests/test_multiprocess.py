@@ -30,11 +30,11 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", {repo!r} + "/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from crossscalepatchmatch.backend import enable_compile_cache
+enable_compile_cache()
 
 pid = int(sys.argv[1])
-from crossscalepatchmatch_tpu.parallel.mesh import initialize_multihost
+from crossscalepatchmatch.parallel.mesh import initialize_multihost
 mesh = initialize_multihost(coordinator_address={coord!r},
                             num_processes=2, process_id=pid)
 assert jax.process_count() == 2, jax.process_count()
@@ -46,9 +46,9 @@ assert dict(mesh.shape) == {{"data": 2, "ty": 4, "tx": 1}}, mesh.shape
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
-from crossscalepatchmatch_tpu import CSPMConfig, CostMethod
-from crossscalepatchmatch_tpu.data import make_pair
-from crossscalepatchmatch_tpu.parallel.tiled import jit_run_batch_sharded
+from crossscalepatchmatch import CSPMConfig, CostMethod
+from crossscalepatchmatch.data import make_pair
+from crossscalepatchmatch.parallel.tiled import jit_run_batch_sharded
 
 cfg = CSPMConfig(max_dis=8, dis_scale=16, wnd_size=11,
                  cost_method=CostMethod.GRD, use_cs=False, use_pp=False,
@@ -129,10 +129,10 @@ def test_two_process_matches_single_process(tmp_path):
     # single-process reference: identical program on 8 local devices
     import jax
     import jax.numpy as jnp
-    from crossscalepatchmatch_tpu import CSPMConfig, CostMethod
-    from crossscalepatchmatch_tpu.data import make_pair
-    from crossscalepatchmatch_tpu.parallel.mesh import make_mesh
-    from crossscalepatchmatch_tpu.parallel.tiled import jit_run_batch_sharded
+    from crossscalepatchmatch import CSPMConfig, CostMethod
+    from crossscalepatchmatch.data import make_pair
+    from crossscalepatchmatch.parallel.mesh import make_mesh
+    from crossscalepatchmatch.parallel.tiled import jit_run_batch_sharded
 
     if jax.device_count() < 8:
         pytest.skip("needs 8 virtual devices for the reference run")

@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from crossscalepatchmatch_tpu import CSPMConfig, CostMethod
-from crossscalepatchmatch_tpu.data import make_pair
-from crossscalepatchmatch_tpu.metrics import bad_pixel_rate
-from crossscalepatchmatch_tpu.models.pipeline import run_pair_np
-from crossscalepatchmatch_tpu.ops.onthefly_cost import (grd_fly_cost,
+from crossscalepatchmatch import CSPMConfig, CostMethod
+from crossscalepatchmatch.data import make_pair
+from crossscalepatchmatch.metrics import bad_pixel_rate
+from crossscalepatchmatch.models.pipeline import run_pair_np
+from crossscalepatchmatch.ops.onthefly_cost import (grd_fly_cost,
                                                         gray_gradient)
 
 

@@ -6,10 +6,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from crossscalepatchmatch_tpu.ops import census, color, cost_volume, grad_cost
-from crossscalepatchmatch_tpu.ops import gradient, plane, plane_cost, pyramid
-from crossscalepatchmatch_tpu.ops import scale_weights
-from crossscalepatchmatch_tpu.config import CSPMConfig, CostMethod
+from crossscalepatchmatch.ops import census, color, cost_volume, grad_cost
+from crossscalepatchmatch.ops import gradient, plane, plane_cost, pyramid
+from crossscalepatchmatch.ops import scale_weights
+from crossscalepatchmatch.config import CSPMConfig, CostMethod
 
 import oracle
 

@@ -1,7 +1,7 @@
 """Cross-checks between the native C++ oracle (csrc/) and the JAX engine.
 
 The oracle implements the reference's *sequential* semantics; the engine is
-the TPU-restructured optimizer.  Cost volumes must agree exactly (same
+the restructured optimizer.  Cost volumes must agree exactly (same
 deterministic math); end-to-end disparity maps must agree within the
 stochastic-optimizer tolerance on the synthetic scene.
 """
@@ -12,13 +12,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from crossscalepatchmatch_tpu import CSPMConfig, CostMethod
-from crossscalepatchmatch_tpu import oracle
-from crossscalepatchmatch_tpu.data import make_pair
-from crossscalepatchmatch_tpu.metrics import bad_pixel_rate
-from crossscalepatchmatch_tpu.models.pipeline import run_pair_np
-from crossscalepatchmatch_tpu.ops.cost_volume import build_volume
-from crossscalepatchmatch_tpu.ops.color import bgr_to_rgb
+from crossscalepatchmatch import CSPMConfig, CostMethod
+from crossscalepatchmatch import oracle
+from crossscalepatchmatch.data import make_pair
+from crossscalepatchmatch.metrics import bad_pixel_rate
+from crossscalepatchmatch.models.pipeline import run_pair_np
+from crossscalepatchmatch.ops.cost_volume import build_volume
+from crossscalepatchmatch.ops.color import bgr_to_rgb
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="needs g++")
@@ -55,7 +55,7 @@ def test_end_to_end_vs_oracle(pair):
     orc_d = oracle_dis[0].astype(np.float32) / 16.0
     bad_ours = bad_pixel_rate(ours_d, pair.disp_left, pair.valid_left)
     bad_orc = bad_pixel_rate(orc_d, pair.disp_left, pair.valid_left)
-    # TPU restructuring must not degrade quality beyond the baseline bound
+    # the restructuring must not degrade quality beyond the baseline bound
     # (BASELINE.json: <= 0.5% bad-pixel delta).
     assert bad_ours <= bad_orc + 0.005, (bad_ours, bad_orc)
     # and both must actually solve the synthetic scene

@@ -14,13 +14,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from crossscalepatchmatch_tpu import CSPMConfig, CostMethod
-from crossscalepatchmatch_tpu.data import make_pair
-from crossscalepatchmatch_tpu.metrics import bad_pixel_rate
-from crossscalepatchmatch_tpu.models.pipeline import run_pair_np
-from crossscalepatchmatch_tpu.ops.prescreen_volume import (
+from crossscalepatchmatch import CSPMConfig, CostMethod
+from crossscalepatchmatch.data import make_pair
+from crossscalepatchmatch.metrics import bad_pixel_rate
+from crossscalepatchmatch.models.pipeline import run_pair_np
+from crossscalepatchmatch.ops.prescreen_volume import (
     build_quadrant_volumes, quadrant_prescreen_cost)
-from crossscalepatchmatch_tpu.ops.plane_cost import window_plane_cost
+from crossscalepatchmatch.ops.plane_cost import window_plane_cost
 
 
 def _scene(h=32, w=44, d=10, seed=0):
@@ -79,30 +79,3 @@ def test_end_to_end_volume_prescreen_quality():
                                     1.0)
     assert bads["volume"] < 0.15, bads
     assert bads["volume"] < bads["window"] + 0.05, bads
-
-
-@pytest.mark.parametrize("stride", [1, 2])
-def test_quadrant_kernel_matches_jnp_interpret(stride):
-    """The fused Pallas quadrant-volume build (round 5) vs the jnp
-    authority, element-level, in interpreter mode."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from crossscalepatchmatch_tpu.ops.pallas.quadrant_build import (
-        quadrant_volumes_pallas)
-
-    h, w, d, wnd = 24, 40, 8, 5
-    key = jax.random.PRNGKey(2)
-    k1, k2 = jax.random.split(key)
-    imgs = jax.random.randint(k1, (2, h, w, 3), 0, 255, jnp.uint8)
-    vols = jax.random.uniform(k2, (2, h, w, d + 1), jnp.float32)
-
-    with pltpu.force_tpu_interpret_mode():
-        bq, wq = quadrant_volumes_pallas(imgs, vols, half_wnd=wnd // 2,
-                                         gamma=10.0, stride=stride,
-                                         th=8, tw=128)
-    want_b, want_w = jax.vmap(lambda i, v: build_quadrant_volumes(
-        i, v, half_wnd=wnd // 2, gamma=10.0, stride=stride))(imgs, vols)
-    np.testing.assert_allclose(np.asarray(wq), np.asarray(want_w),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(bq), np.asarray(want_b),
-                               rtol=1e-5, atol=1e-5)

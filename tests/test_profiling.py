@@ -2,7 +2,7 @@
 
 import jax.numpy as jnp
 
-from crossscalepatchmatch_tpu.utils.profiling import PhaseTimer, throughput
+from crossscalepatchmatch.utils.profiling import PhaseTimer, throughput
 
 
 def test_phase_timer():
@@ -28,7 +28,7 @@ def test_throughput():
 def test_debug_utils(tmp_path):
     import numpy as np
 
-    from crossscalepatchmatch_tpu.utils import debug
+    from crossscalepatchmatch.utils import debug
 
     out = {
         "abc": np.random.default_rng(0).normal(size=(2, 8, 10, 3)).astype(

@@ -6,12 +6,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from crossscalepatchmatch_tpu import CSPMConfig, CostMethod
-from crossscalepatchmatch_tpu.data import make_pair
-from crossscalepatchmatch_tpu.metrics import bad_pixel_rate
-from crossscalepatchmatch_tpu.parallel.mesh import make_mesh
-from crossscalepatchmatch_tpu.models.pipeline import run_pair_np
-from crossscalepatchmatch_tpu.parallel.tiled import (
+from crossscalepatchmatch import CSPMConfig, CostMethod
+from crossscalepatchmatch.data import make_pair
+from crossscalepatchmatch.metrics import bad_pixel_rate
+from crossscalepatchmatch.parallel.mesh import make_mesh
+from crossscalepatchmatch.models.pipeline import run_pair_np
+from crossscalepatchmatch.parallel.tiled import (
     extend_rows, jit_run_batch_sharded)
 
 
@@ -169,7 +169,7 @@ class TestShardedPipeline:
         # 11x11 ASW window double-smooths and is genuinely poor on this
         # tiny scene (~0.62 bad either way); the sharded path must simply
         # reproduce the single-device behavior of the same config
-        from crossscalepatchmatch_tpu.config import Aggregator
+        from crossscalepatchmatch.config import Aggregator
         pair = make_pair(h=32, w=48, max_dis=8, seed=8)
         cfg = small_cfg(max_dis=8, aggregator=Aggregator.BOX)
         mesh = make_mesh(1, 4)
@@ -249,8 +249,8 @@ class TestShardedPipeline:
         """Batched video serving over a data mesh: every stream's
         trajectory must equal the standalone run_sequence_np run with the
         stream's seed, bit-for-bit, across cold + warm frames."""
-        from crossscalepatchmatch_tpu.models.pipeline import run_sequence_np
-        from crossscalepatchmatch_tpu.parallel.tiled import (
+        from crossscalepatchmatch.models.pipeline import run_sequence_np
+        from crossscalepatchmatch.parallel.tiled import (
             run_sequence_batch)
 
         mesh = make_mesh(2, 1, 1, devices=jax.devices()[:2])
@@ -273,7 +273,7 @@ class TestShardedPipeline:
         """precompute_volume=False on a data-only mesh runs each pair as
         a whole single-device pipeline under shard_map; outputs must be
         bit-identical to the unsharded pipeline."""
-        from crossscalepatchmatch_tpu.models.pipeline import run_pair
+        from crossscalepatchmatch.models.pipeline import run_pair
 
         mesh = make_mesh(2, 1, 1, devices=jax.devices()[:2])
         cfg = small_cfg(precompute_volume=False)

@@ -5,7 +5,7 @@ scenes; the reference semantics that matter at LARGE disparity -- the
 max_dis/2 refinement start (cs_patchmatch.cc:292-345) and the border
 columns at large d (grd_cc.cpp:21-35) -- were never oracle-compared at
 production geometry.  This driver runs the native oracle
-(csrc/cspm_oracle.cc) and the TPU engine on ONE KITTI-like synthetic
+(csrc/cspm_oracle.cc) and the engine on ONE KITTI-like synthetic
 scene (default 256x832, max_dis=96, GRD + post-processing) and scores
 both @3px (the KITTI convention) against the synthetic ground truth.
 
@@ -48,8 +48,8 @@ def main():
                     help="bad-pixel threshold (KITTI convention: 3 px)")
     args = ap.parse_args()
 
-    from crossscalepatchmatch_tpu.data import make_pair
-    from crossscalepatchmatch_tpu.metrics import bad_pixel_rate
+    from crossscalepatchmatch.data import make_pair
+    from crossscalepatchmatch.metrics import bad_pixel_rate
 
     key = f"{args.h}x{args.w}_d{args.max_dis}_{args.cc}_pp"
     pair = make_pair(h=args.h, w=args.w, max_dis=args.max_dis, seed=7)
@@ -61,7 +61,7 @@ def main():
     entry = cache.get(key, {"oracle": {}})
 
     if not args.engine_only:
-        from crossscalepatchmatch_tpu import oracle
+        from crossscalepatchmatch import oracle
         for seed in range(args.oracle_seeds):
             if str(seed) in entry["oracle"]:
                 continue
@@ -89,8 +89,8 @@ def main():
               file=sys.stderr)
         return 1
 
-    from crossscalepatchmatch_tpu import CSPMConfig, CostMethod
-    from crossscalepatchmatch_tpu.models.pipeline import run_pair_np
+    from crossscalepatchmatch import CSPMConfig, CostMethod
+    from crossscalepatchmatch.models.pipeline import run_pair_np
     cfg = CSPMConfig(max_dis=args.max_dis, dis_scale=args.dis_scale,
                      cost_method=CostMethod[args.cc], use_cs=False,
                      use_pp=True)

@@ -1,17 +1,16 @@
 """Prime the persistent compile cache for the production config set.
 
-Cold Mosaic/XLA compiles dominate a first run (BASELINE.md round-3
-breakdown: ~2 min for the bench pipeline).  This tool compiles -- without
-running full-size iterations more than once -- the kernel/pipeline
-instantiations the shipped configs need, so every later `bench.py`,
-`eval.py`, or serving call hits `.jax_cache`:
+Cold compiles dominate a first run.  This tool compiles -- running each
+full-size pipeline once -- the kernel/pipeline instantiations the shipped
+configs need, so every later `bench.py`, `eval.py`, or serving call hits
+the persistent compile cache (JAX_COMPILATION_CACHE_DIR, else
+`.jax_cache`):
 
   * README-demo GRD pipeline at cones geometry (the bench headline)
   * the same via run_pairs (batch serving wraps the same program in
-    lax.map -> separate XLA program, same Mosaic kernels)
+    lax.map -> separate XLA program, same kernels)
   * CEN + cross-scale + post-processing pipeline
   * KITTI-geometry GRD (d=128)
-  * the fused on-the-fly (no-volume) GRD pipeline
 
 Usage: python tools/prime_cache.py [--quick]   (--quick: bench config only)
 """
@@ -31,15 +30,15 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(_REPO, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
     import jax.numpy as jnp
 
-    from crossscalepatchmatch_tpu import CSPMConfig, CostMethod
-    from crossscalepatchmatch_tpu.data import make_pair
-    from crossscalepatchmatch_tpu.models.pipeline import run_pair, run_pairs
+    from crossscalepatchmatch.backend import enable_compile_cache
+
+    cache = enable_compile_cache()
+
+    from crossscalepatchmatch import CSPMConfig, CostMethod
+    from crossscalepatchmatch.data import make_pair
+    from crossscalepatchmatch.models.pipeline import run_pair, run_pairs
 
     jobs = [("bench_grd", 375, 450, 60,
              dict(max_dis=60, dis_scale=4, cost_method=CostMethod.GRD))]
@@ -51,9 +50,6 @@ def main():
             ("kitti_grd_pp", 375, 1242, 128,
              dict(max_dis=128, dis_scale=2, cost_method=CostMethod.GRD,
                   use_pp=True)),
-            ("fly_grd", 375, 450, 60,
-             dict(max_dis=60, dis_scale=4, cost_method=CostMethod.GRD,
-                  precompute_volume=False)),
         ]
 
     for name, h, w, md, kw in jobs:
@@ -71,7 +67,7 @@ def main():
             jax.block_until_ready(out)
             print(f"prime {name} (batch serving): "
                   f"{time.perf_counter()-t0:.1f}s", flush=True)
-    print("cache primed:", os.path.join(_REPO, ".jax_cache"))
+    print("cache primed:", cache)
 
 
 if __name__ == "__main__":
